@@ -3,8 +3,9 @@
 
 Judge's datum on r4 HEAD: 400 frames -> ATE 10.14 m (20.8% of travel),
 tracking_ok 0.69, 36 KFs, max perr 46.8 m. This dumps the per-frame chain
-to locate the break frame and mechanism. Slices the cached 700-frame
-sequence so no re-render and a single standardized compile shape.
+to locate the break frame and mechanism. Renders the 700-frame road_long
+sequence and slices its first N frames (DIAG_FRAMES, default 400), so
+every N shares one trajectory.
 """
 import os, sys, json
 os.chdir(os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
@@ -21,11 +22,8 @@ lefts, rights, gts = bench._render_sequence(cfg.camera, 700, "road_long",
                                             "kitti", False)
 lefts, rights, gts = lefts[:N], rights[:N], gts[:N]
 run = jax.jit(lambda a, b: runner.run_sequence_scan(cfg, a, b))
-import time
-t0 = time.time()
 st, outs = run(lefts, rights)
 ok = np.asarray(outs.tracking_ok)
-print("compile+run s:", round(time.time() - t0, 1))
 nt = np.asarray(outs.n_tracked); ns = np.asarray(outs.n_seeds)
 nl = np.asarray(outs.n_landmarks); md = np.asarray(outs.median_depth)
 kf = np.asarray(outs.kf_inserted); est = np.asarray(outs.T_wc)

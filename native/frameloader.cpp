@@ -1,5 +1,5 @@
 // Native stereo frame loader: decode + rectify + prefetch off the Python
-// thread. TPU-native equivalent of the reference's C++ app-layer
+// thread. Equivalent of the reference's C++ app-layer
 // ImageInput implementations (SURVEY.md §2.1 "Dataset inputs",
 // src/app/*input* [UNVERIFIED — reference mount empty, SURVEY.md §0]).
 //

@@ -11,7 +11,8 @@ tensors*: with K ≤ max_keyframes poses and N ≤ max_features landmarks, all
 block Hll is block-diagonal (3x3 per landmark) and eliminated in closed
 form; the reduced camera system (6K x 6K, tiny) is solved densely. Masks
 make absent observations exact zeros, so the masked dense formulation is
-algebraically identical to the sparse solver while mapping onto the MXU.
+algebraically identical to the sparse solver while running as a few
+large batched contractions instead of per-observation loops.
 
 The same functions run under ``shard_map`` with landmarks sharded across a
 mesh axis — partial Schur blocks then ``psum`` into the replicated reduced
@@ -25,19 +26,18 @@ from typing import NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 
-# The BA normal equations need true f32 matmuls: TPU default precision
-# feeds the MXU bf16-truncated inputs (preferred_element_type only sets
-# the ACCUMULATOR dtype), which is enough to make GN diverge on
-# driving-scale geometry — measured: identical inputs converge 628->92 on
-# CPU and diverge 737->4383 on TPU at default precision (BASELINE.md r3
-# root-cause #3). HIGHEST runs 3-pass bf16 (exact f32); BA is KF-rate
-# work, the cost is negligible.
-_HI = jax.lax.Precision.HIGHEST
-
 from ..config import CameraConfig, SvoConfig
 from ..geometry import camera as cam_mod
 from ..geometry import se3
 from ..ops import solve as solve_ops
+# The BA normal equations need true f32 matmuls: with reduced-precision
+# matmul inputs (TF32 keeps a 10-bit mantissa; preferred_element_type
+# only sets the accumulator dtype) GN diverges on driving-scale geometry —
+# identical inputs converged 628 -> 92 at f32 and diverged 737 -> 4383
+# with reduced-precision inputs when this solver was built (commit
+# 9778a94 history). BA is keyframe-rate work; the cost of true f32 is
+# negligible.
+from ..precision import SOLVER
 
 
 class BAStats(NamedTuple):
@@ -98,22 +98,22 @@ def _linearize(cam: CameraConfig, cfg: SvoConfig,
 
     # pose rows: d x_c/d(v,w) = [I | -hat(x_c)] for left-multiplied twists
     J_w = -jnp.einsum("knri,knij->knrj", Jc, se3.hat(x_c),
-                      precision=_HI)
+                      precision=SOLVER)
     Jp = jnp.concatenate([Jc, J_w], axis=-1)              # (K,N,3,6)
     R_kw = se3.rotation(T_kw)                             # (K,3,3)
     Jl = jnp.einsum("knri,kij->knrj", Jc, R_kw,
-                    precision=_HI)                        # (K,N,3,3)
+                    precision=SOLVER)                        # (K,N,3,3)
 
     Hpp = jnp.einsum("knri,knr,knrj->kij", Jp, w, Jp,
-                     precision=_HI, preferred_element_type=jnp.float32)  # (K,6,6)
+                     precision=SOLVER, preferred_element_type=jnp.float32)  # (K,6,6)
     Hll = jnp.einsum("knri,knr,knrj->nij", Jl, w, Jl,
-                     precision=_HI, preferred_element_type=jnp.float32)  # (N,3,3)
+                     precision=SOLVER, preferred_element_type=jnp.float32)  # (N,3,3)
     Hpl = jnp.einsum("knri,knr,knrj->knij", Jp, w, Jl,
-                     precision=_HI, preferred_element_type=jnp.float32)  # (K,N,6,3)
+                     precision=SOLVER, preferred_element_type=jnp.float32)  # (K,N,6,3)
     gp = jnp.einsum("knri,knr,knr->ki", Jp, w, r,
-                    precision=_HI, preferred_element_type=jnp.float32)   # (K,6)
+                    precision=SOLVER, preferred_element_type=jnp.float32)   # (K,6)
     gl = jnp.einsum("knri,knr,knr->ni", Jl, w, r,
-                    precision=_HI, preferred_element_type=jnp.float32)   # (N,3)
+                    precision=SOLVER, preferred_element_type=jnp.float32)   # (N,3)
     cost = jnp.sum(w * r * r)
     return Hpp, Hll, Hpl, gp, gl, cost
 
@@ -138,10 +138,10 @@ def _schur_reduce(Hpp, Hll, Hpl, gp, gl, lam, fixed_mask, reduce_fn=None):
 
     # S_{k,k'} = δ·Hpp_k − Σ_j Hpl_kj Hll_j^{-1} Hpl_k'j^T
     W = jnp.einsum("knij,njl->knil", Hpl, Hll_inv,
-                   precision=_HI)                          # (K,N,6,3)
+                   precision=SOLVER)                          # (K,N,6,3)
     S_off = jnp.einsum("knil,mnjl->kmij", W, Hpl,
-                       precision=_HI, preferred_element_type=jnp.float32)  # (K,K,6,6)
-    rhs_l = jnp.einsum("knil,nl->ki", W, gl, precision=_HI)  # (K,6)
+                       precision=SOLVER, preferred_element_type=jnp.float32)  # (K,K,6,6)
+    rhs_l = jnp.einsum("knil,nl->ki", W, gl, precision=SOLVER)  # (K,6)
 
     # cross-shard reduction of everything that sums over landmarks
     Hpp = reduce_fn(Hpp)
@@ -161,7 +161,7 @@ def _schur_reduce(Hpp, Hll, Hpl, gp, gl, lam, fixed_mask, reduce_fn=None):
     # condition number gauge-dominated — the fixed-iteration Jacobi CG
     # returned garbage steps on driving-scale data: measured cost
     # 890 → 332k, a 57 m pose step, silently absorbed by the divergence
-    # guard; BASELINE.md r3 root-cause #3.)
+    # guard; commit 9778a94 history.)
     free = (1.0 - fixed_mask)
     S = S * free[:, None, None, None] * free[None, :, None, None]
     S = S.at[jnp.arange(K), jnp.arange(K)].add(
@@ -193,9 +193,8 @@ def ba_iteration(cam: CameraConfig, cfg: SvoConfig,
     the replicated factorization is valid (equivalence vs single-device:
     tests/test_parallel.py). "cg" is the fixed-iteration Jacobi-CG
     fallback for window sizes where a dense factorization won't fit. At
-    the default window size CG-40 was pure serial latency: 40 dependent
-    tiny matvec/axpy steps measured ~0.9 ms of the 1.45 ms BA call (r4
-    per-op accounting), vs ~40 µs for the direct factorization.
+    the default window size CG-40 is pure serial latency: 40 dependent
+    tiny matvec/axpy steps against one 60x60 factorization.
     """
     K = T_kw.shape[0]
     Hpp, Hll, Hpl, gp, gl, cost = _linearize(
@@ -219,9 +218,9 @@ def ba_iteration(cam: CameraConfig, cfg: SvoConfig,
         dp = solve_ops.cg_solve(S, rhs, iters=40).reshape(K, 6)
     # Back-substitute landmarks: δl = -Hll⁻¹ (gl + Hlpᵀ·δp)
     Hlp_dp = jnp.einsum("knij,ki->nj", Hpl, dp,
-                        precision=_HI)                     # (N,3)
+                        precision=SOLVER)                     # (N,3)
     dl = -jnp.einsum("nij,nj->ni", Hll_inv, gl + Hlp_dp,
-                     precision=_HI)
+                     precision=SOLVER)
     # clamp pathological steps (masked/degenerate landmarks)
     dl = jnp.clip(dl, -1.0, 1.0)
     dp = dp * (1.0 - fixed_mask)[:, None]

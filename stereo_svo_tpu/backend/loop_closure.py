@@ -3,7 +3,7 @@
 The reference is pure odometry — no loop closure exists upstream (SVO-family
 systems drift; SURVEY.md §5.3 lists relocalization as absent/stretch). The
 pose-graph layer [SPEC] accepts loop edges, so this module supplies the two
-missing pieces, TPU-native:
+missing pieces as batched, fixed-shape device code:
 
 1. **Global descriptor** (``descriptor``): the keyframe's coarsest pyramid
    level average-pooled onto a tiny fixed grid, zero-mean / unit-norm — a
@@ -11,7 +11,7 @@ missing pieces, TPU-native:
    ZNCC matcher of SeqSLAM / LSD-SLAM-style relocalization). Similarity of
    two descriptors is their dot product == ZNCC of the pooled thumbnails,
    invariant to affine lighting. Descriptor compare against a keyframe bank
-   is one matvec — MXU-friendly, no trees or vocabularies.
+   is one matvec — no trees or vocabularies.
 
 2. **Edge proposal** (``propose_edges``): dense descriptor similarity
    matrix over the keyframe bank, masked by validity, temporal separation
@@ -46,6 +46,7 @@ from ..geometry import camera as cam_mod
 from ..geometry import se3
 from ..ops import align as align_ops
 from ..ops import pyramid
+from ..precision import MATCHING
 from . import pose_graph
 
 
@@ -73,9 +74,14 @@ def descriptor(img: jnp.ndarray, rows: int, cols: int) -> jnp.ndarray:
     return sub / jnp.maximum(jnp.linalg.norm(sub), 1e-6)
 
 
+def _sim(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    """(K, D) x (M, D) unit descriptors → (K, M) ZNCC scores."""
+    return jnp.einsum("kd,md->km", a, b, precision=MATCHING)
+
+
 def similarity(desc: jnp.ndarray, bank: jnp.ndarray) -> jnp.ndarray:
     """(D,) query vs (K, D) bank → (K,) ZNCC scores in [-1, 1]."""
-    return bank @ desc
+    return jnp.matmul(bank, desc, precision=MATCHING)
 
 
 def shifted_descriptors(img: jnp.ndarray, rows: int, cols: int
@@ -204,18 +210,17 @@ def relocalize(kf_desc: jnp.ndarray, kf_valid: jnp.ndarray,
     rot_gate: optional scalar bool — compute the rotated variants only
     when True (under ``lax.cond``). The engine calls relocalize every
     frame but only consumes it after a tracking failure; the 2·n_rot
-    coarse-image rotations are gather-bound and cost ~0.6 ms/frame on
-    TPU when run unconditionally (measured: 515 → 390 fps), so healthy
-    frames skip them.
+    coarse-image rotations are gather-bound work that healthy frames
+    skip.
     """
     ds = shifted_descriptors(coarse_img, rows, cols)          # (9, D)
-    scores = jnp.max(kf_desc @ ds.T, axis=-1)
+    scores = jnp.max(_sim(kf_desc, ds), axis=-1)
     if n_rot > 0:
         angles = [k * rot_step for k in range(-n_rot, n_rot + 1) if k != 0]
 
         def rot_scores(_):
             dr = rotated_descriptors(coarse_img, rows, cols, angles)
-            return jnp.max(kf_desc @ dr.T, axis=-1)
+            return jnp.max(_sim(kf_desc, dr), axis=-1)
 
         if rot_gate is None:
             s_rot = rot_scores(None)
@@ -253,10 +258,11 @@ def propose_edges(desc: jnp.ndarray, valid: jnp.ndarray,
     """
     K = desc.shape[0]
     if desc_shift is not None:
-        S = jnp.max(jnp.einsum("kd,msd->kms", desc, desc_shift), axis=-1)
+        S = jnp.max(jnp.einsum("kd,msd->kms", desc, desc_shift,
+                               precision=MATCHING), axis=-1)
         S = jnp.maximum(S, S.T)                          # symmetrize
     else:
-        S = desc @ desc.T                                # (K, K)
+        S = _sim(desc, desc)                             # (K, K)
     i = jnp.arange(K)
     pair_ok = (valid[:, None] & valid[None, :]
                & (i[:, None] < i[None, :]))              # upper triangle
@@ -291,7 +297,7 @@ def propose_online(cfg: SvoConfig, mem_desc: jnp.ndarray,
     """
     q = query_descriptors(thumb_new, cfg.loop_desc_rows, cfg.loop_desc_cols,
                           cfg.pr_rot_variants, cfg.pr_rot_step_rad)  # (V,D)
-    scores = jnp.max(mem_desc @ q.T, axis=-1)                         # (M,)
+    scores = jnp.max(_sim(mem_desc, q), axis=-1)                      # (M,)
     gap = jnp.abs(mem_stamp - mem_stamp[m_new]) >= cfg.loop_min_gap
     scores = jnp.where(mem_valid & gap, scores, -2.0)
     top, idx = jax.lax.top_k(scores, cfg.online_loop_edges)

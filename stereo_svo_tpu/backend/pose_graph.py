@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from ..geometry import se3
+from ..precision import SOLVER
 
 
 class PoseGraph(NamedTuple):
@@ -93,8 +94,9 @@ def optimize(T_wk: jnp.ndarray, valid: jnp.ndarray, graph: PoseGraph,
         zero = jnp.zeros(K * 6, T_cur.dtype)
         J = jax.jacfwd(perturbed_residual)(zero, T_cur)     # (6E, 6K)
         r = perturbed_residual(zero, T_cur)                 # (6E,)
-        H = J.T @ J + lam * jnp.eye(K * 6, dtype=T_cur.dtype)
-        g = J.T @ r
+        H = (jnp.matmul(J.T, J, precision=SOLVER)
+             + lam * jnp.eye(K * 6, dtype=T_cur.dtype))
+        g = jnp.matmul(J.T, r, precision=SOLVER)
         # gauge + invalid poses pinned
         pin = ((jnp.arange(K) == fixed) | ~valid)
         big = 1e12

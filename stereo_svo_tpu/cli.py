@@ -21,6 +21,7 @@ import time
 
 import numpy as np
 
+from . import compile_cache
 from .config import SvoConfig, euroc_config, kitti_config
 from .engine.runner import StereoSvo
 from .eval import ate as ate_mod
@@ -90,6 +91,7 @@ def main(argv=None):
                         "repaired during the run (0 = off; see "
                         "config.online_loop_every)")
     args = p.parse_args(argv)
+    compile_cache.enable()
 
     if args.dataset == "euroc":
         cfg = euroc_config()

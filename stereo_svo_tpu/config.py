@@ -1,4 +1,4 @@
-"""Static configuration for the TPU-native stereo SVO engine.
+"""Static configuration for the stereo SVO engine.
 
 Mirrors the reference's ``CameraSettings`` struct (reference:
 src/lib/stereo_slam_types.hpp [UNVERIFIED — empty mount, see SURVEY.md §0]):
@@ -85,29 +85,26 @@ class SvoConfig:
                                    # align_max_iters. Coarse levels
                                    # converge in 2-3 steps under the
                                    # constant-velocity prior; each saved
-                                   # pass is a sampling einsum + a
+                                   # pass is a sampling pass + a
                                    # serial 6x6 solve. Measured (r3,
-                                   # EuRoC-geometry bench): (2,3,4,8) →
-                                   # 659 fps @ ATE 0.0103 vs flat-10 →
-                                   # ~520 @ 0.0106
+                                   # EuRoC-geometry bench): (2,3,4,8)
+                                   # ATE 0.0103 vs flat-10 0.0106 —
+                                   # parity at fewer dependent stages
     align_levels: int = 4          # coarse-to-fine levels used for alignment
-    align_min_level: int = 0       # finest level in alignment. The r1
-                                   # claim "min_level=1 → +18% fps but 3x
-                                   # ATE" was measured pre-illum_affine and
-                                   # is inverted on current code at stress
-                                   # scale: min_level=0 there is SLOWER and
-                                   # less accurate (122.6 fps / ATE 0.0181
-                                   # vs 144.0 / 0.0124 — BASELINE.md r3),
-                                   # so stress_config keeps 1. Default
+    align_min_level: int = 0       # finest level in alignment. At stress
+                                   # scale min_level=0 is less accurate
+                                   # than 1 (ATE 0.0181 vs 0.0124,
+                                   # 9778a94:BASELINE.md r3), so
+                                   # stress_config keeps 1. Default
                                    # stays 0 for the 192-feature config.
     align_huber: float = 8.0       # Huber k on intensity residuals (u8 scale)
     align_irls_chunks: int = 3     # Huber-weight/Hessian refreshes per
                                    # level; each refresh takes an exact GN
                                    # step, iterations in between reuse H⁻¹
                                    # as one matvec (the exact 6x6 Cholesky
-                                   # chain is latency-bound on TPU).
-                                   # Measured: 515 fps @ ATE 0.0169 vs
-                                   # 433 fps @ 0.0167 exact — parity.
+                                   # + exp + compose chain is a serial,
+                                   # latency-bound stage). Measured: ATE
+                                   # 0.0169 vs 0.0167 exact — parity.
                                    # align_max_iters → exact classic IRLS.
 
     align_tmpl_stereo: bool = False  # template depths from the CURRENT
@@ -154,7 +151,7 @@ class SvoConfig:
     refine_huber_px: float = 2.0   # Huber k on reprojection residuals (px)
     refine_outlier_px: float = 4.0 # reprojection error to kill a feature
     refine_irls_chunks: int = 3    # Jacobian/weight refreshes (see
-                                   # align_irls_chunks; same TPU rationale)
+                                   # align_irls_chunks; same rationale)
     refine_prior_t_sig: float = 0.05  # constant-velocity motion prior in
                                    # the refiner (m, rad; 0 disables):
                                    # loose enough to be invisible against
@@ -163,7 +160,7 @@ class SvoConfig:
                                    # far-dominated set cannot observe —
                                    # which the distance-triggered KF
                                    # policy would otherwise anchor a
-                                   # keyframe at (BASELINE.md r3
+                                   # keyframe at (9778a94:BASELINE.md r3
                                    # KITTI-geometry root cause)
     refine_prior_r_sig: float = 0.02
     refine_whiten_depth: bool = False  # fold the depth posterior's
@@ -228,7 +225,7 @@ class SvoConfig:
                                    # the disparity measurement is
                                    # pose-free (measured: KITTI-geom
                                    # landmark depth bias +0.8%→+9.6%
-                                   # without it — BASELINE.md r3).
+                                   # without it — 9778a94:BASELINE.md r3).
                                    # Window sizing (r4): the search
                                    # centers on the POSE-predicted
                                    # disparity, which a scale drift of s
@@ -253,7 +250,7 @@ class SvoConfig:
                                    # True helped (+2-3% landmark bias
                                    # without it, pre-gauge-fix BA); r5
                                    # re-raced post-gauge-fix — see
-                                   # BASELINE.md r5 road table.
+                                   # 9778a94:BASELINE.md r5 road table.
     # per-seed epipolar search for KLT-lost seeds (ref DepthFilter's 1-D
     # search along the epipolar line; SURVEY.md §3.5)
     epi_samples: int = 0           # ZNCC probes along the μ±3σ segment
@@ -302,8 +299,8 @@ class SvoConfig:
                                      # measurements that re-anchor scale
                                      # once inverse-depth drift exceeds
                                      # ~8% (measured: the KITTI-geometry
-                                     # forward-scale runaway, BASELINE.md
-                                     # r3 root-cause)
+                                     # forward-scale runaway,
+                                     # 9778a94:BASELINE.md r3 root-cause)
 
     # --- bundle adjustment (backend) ---
     use_ba: bool = True            # run window BA at each KF insertion
@@ -386,14 +383,13 @@ class SvoConfig:
     # current/template poses) — a revisit repairs drift DURING the run.
     online_loop_every: int = 0     # run every N-th KF insertion (0 = off
                                    # — odometry parity with the
-                                   # reference). Measured at 752×480
-                                   # (BASELINE.md r5): the query +
+                                   # reference). The query +
                                    # bidirectional edge measurement +
-                                   # pose graph costs ≈16 ms per KF
+                                   # pose graph run at each checked KF
                                    # insertion; for loop workloads
                                    # online_loop_every=4 is the
-                                   # recommended setting (4× less
-                                   # overhead, ≤3-KF detection delay)
+                                   # recommended setting (4× fewer
+                                   # checks, ≤3-KF detection delay)
     online_loop_edges: int = 2     # top-k bank matches measured per query
     online_loop_iters: int = 8     # pose-graph GN iterations
     online_loop_max_t: float = 2.0  # trust guard: reject a correction
@@ -428,9 +424,6 @@ class SvoConfig:
                                    # scale loops with a fixed-size bank);
                                    # "fifo" is the plain ring (horizon =
                                    # mem_keyframes · KF-interval frames)
-
-    # --- numerics ---
-    dtype: str = "float32"         # image/compute dtype ("float32"|"bfloat16")
 
     def __post_init__(self):
         assert self.align_levels <= self.num_levels

@@ -560,8 +560,9 @@ def make_phases(cfg: SvoConfig):
             # whose pose excursed the most — anchoring the new keyframe
             # (and all its seeds) at the excursion (measured: +70 mm of
             # immortalized forward error per distance-KF on the
-            # KITTI-geometry road run; BASELINE.md r3). The prediction is
-            # smooth, so trigger timing decorrelates from estimate noise.
+            # KITTI-geometry road run; 9778a94:BASELINE.md r3). The
+            # prediction is smooth, so trigger timing decorrelates from
+            # estimate noise.
             c_cur = se3.translation(se3.inverse(T_prior))
             c_kf = se3.translation(st.kf_T_wk[st.last_kf])
             kf_dist = jnp.linalg.norm(c_cur - c_kf)

@@ -3,7 +3,7 @@
 Reference parity: the reference's Python evaluation scripts compare an
 exported trajectory against ground truth with an ATE-style metric
 (python/ [UNVERIFIED — SURVEY.md §0]; SURVEY.md §4.1). ATE RMSE on EuRoC
-MH_01 is part of the judged metric (BASELINE.md).
+MH_01 is part of the judged metric (9778a94:BASELINE.md).
 """
 
 from __future__ import annotations
@@ -87,3 +87,33 @@ def rpe(est_T: np.ndarray, gt_T: np.ndarray, delta: int = 1):
 def positions(T_wc: np.ndarray) -> np.ndarray:
     """(N,3,4) camera→world poses → (N,3) camera centers."""
     return np.asarray(T_wc)[:, :, 3]
+
+
+# Accuracy gates of every benchmark and smoke run: a faster run that
+# misses them is a regression, not a result.
+ATE_GATE_M = 0.02          # EuRoC geometry, 100 frames
+TRACK_GATE = 0.99          # fraction of frames with tracking_ok
+
+
+def travel(T_wc: np.ndarray) -> float:
+    """Path length (m) of a (N,3,4) trajectory."""
+    return float(np.sum(np.linalg.norm(np.diff(positions(T_wc), axis=0),
+                                       axis=-1)))
+
+
+def driving_ate_gate(travel_m: float) -> float:
+    """ATE bound at driving (KITTI) scale: 1.5 % of travel — the upper end
+    of published stereo-VO drift on KITTI — with a 0.25 m floor for short
+    runs, where 1.5 % would dip under EuRoC-scale noise."""
+    return max(0.25, 0.015 * travel_m)
+
+
+def gate_failures(err, tracking, ate_gate: float = ATE_GATE_M,
+                  track_gate: float = TRACK_GATE) -> list:
+    """Gate violations as messages (empty when both pass; None skips)."""
+    fails = []
+    if err is not None and err > ate_gate:
+        fails.append(f"ate_rmse {err:.4f} > {ate_gate}")
+    if tracking is not None and tracking < track_gate:
+        fails.append(f"tracking_ok {tracking:.4f} < {track_gate}")
+    return fails

@@ -202,7 +202,7 @@ def insert(cfg: SvoConfig, state: SlamState, pyr_l, gxs, gys,
     # window BA drags poses to fit the mismatch while its cost still
     # decreases (measured: the dominant error source of the KITTI-geometry
     # road run — BA moved each new keyframe up to 338 mm forward;
-    # BASELINE.md r3 root-cause #3).
+    # 9778a94:BASELINE.md r3 root-cause #3).
     obs_mask_clean = state.obs_mask & ~new_rows[None, :]
     obs_dmask_clean = state.obs_dmask & ~new_rows[None, :]
     obs_uv = state.obs_uv.at[slot].set(feat_uv)

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from ..config import CameraConfig, SvoConfig
 from ..geometry import camera, se3
 from ..ops import solve
+from ..precision import SOLVER
 
 
 def refine(cam: CameraConfig, cfg: SvoConfig, T_cw: jnp.ndarray,
@@ -41,8 +42,8 @@ def refine(cam: CameraConfig, cfg: SvoConfig, T_cw: jnp.ndarray,
       T_prior: optional (3,4) motion-prior pose (the constant-velocity
         prediction). Adds a Gaussian prior ½‖log(T∘T_prior⁻¹)‖²_Λ with
         Λ = diag(1/σ_t², 1/σ_r²) from cfg.refine_prior_t_sig/_r_sig.
-        Purpose (BASELINE.md r3 KITTI-geometry root-cause): when the
-        tracked feature set goes far-dominated, the forward axis is
+        Purpose (9778a94:BASELINE.md r3 KITTI-geometry root-cause): when
+        the tracked feature set goes far-dominated, the forward axis is
         weakly observed and single frames can excurse 100-400 mm — the
         distance-triggered keyframe policy then anchors a keyframe AT the
         excursion, immortalizing it. A loose prior (default 50 mm) is
@@ -113,7 +114,7 @@ def refine(cam: CameraConfig, cfg: SvoConfig, T_cw: jnp.ndarray,
             [zero, zero, jnp.ones_like(z),
              x_c[..., 1], -x_c[..., 0], zero], axis=-1)     # (N,6)
 
-    # Chunked IRLS (same TPU-latency rationale as ops/align.py): the exact
+    # Chunked IRLS (same latency rationale as ops/align.py): the exact
     # per-iteration 6x6 Cholesky + exp chain is what the iteration's wall
     # time is made of, not the (N,)-sized vector work. Refresh J/W/H⁻¹ a
     # few times (taking an exact GN step each time); between refreshes the
@@ -124,16 +125,13 @@ def refine(cam: CameraConfig, cfg: SvoConfig, T_cw: jnp.ndarray,
     for ci in range(chunks):
         x_c, r, w, r_d, w_d = residual(T)
         J = camera.proj_pose_jacobian(cam, x_c)             # (N,2,6)
-        H = jnp.einsum("nri,n,nrj->ij", J, w, J,
-                       preferred_element_type=jnp.float32)
-        g = jnp.einsum("nri,n,nr->i", J, w, r,
-                       preferred_element_type=jnp.float32)
+        H = jnp.einsum("nri,n,nrj->ij", J, w, J, precision=SOLVER)
+        g = jnp.einsum("nri,n,nr->i", J, w, r, precision=SOLVER)
         if use_disp:
             Jd = disp_jacobian(x_c)                         # (N,6)
             H = H + jnp.einsum("ni,n,nj->ij", Jd, w_d, Jd,
-                               preferred_element_type=jnp.float32)
-            g = g + jnp.einsum("ni,n,n->i", Jd, w_d, r_d,
-                               preferred_element_type=jnp.float32)
+                               precision=SOLVER)
+            g = g + jnp.einsum("ni,n,n->i", Jd, w_d, r_d, precision=SOLVER)
         if use_prior:
             xi = se3.log(se3.compose(T, T_prior_inv))
             H = H + jnp.diag(lam)
@@ -147,12 +145,12 @@ def refine(cam: CameraConfig, cfg: SvoConfig, T_cw: jnp.ndarray,
 
         def body(it, T):
             _, r, w_i, r_d_i, w_d_i = residual(T)
-            g = jnp.einsum("nri,n,nr->i", J, w_i, r,
-                           preferred_element_type=jnp.float32)
+            g = jnp.einsum("nri,n,nr->i", J, w_i, r, precision=SOLVER)
             if use_disp:
                 g = g + jnp.einsum("ni,n,n->i", Jd, w_d_i, r_d_i,
-                                   preferred_element_type=jnp.float32)
-            return se3.compose(se3.exp(-(Hinv @ g)), T)
+                                   precision=SOLVER)
+            step = jnp.matmul(Hinv, g, precision=SOLVER)
+            return se3.compose(se3.exp(-step), T)
 
         T = jax.lax.fori_loop(0, inner, body, T)
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from ..config import CameraConfig
+from ..precision import GEOMETRY
 from . import se3
 
 
@@ -81,7 +82,8 @@ def proj_pose_jacobian(cam: CameraConfig, x_cam: jnp.ndarray, level: int = 0):
     """
     Jp = proj_jacobian(cam, x_cam, level)          # (…,2,3)
     J_v = Jp
-    J_w = -jnp.einsum("...ij,...jk->...ik", Jp, se3.hat(x_cam))
+    J_w = -jnp.einsum("...ij,...jk->...ik", Jp, se3.hat(x_cam),
+                      precision=GEOMETRY)
     return jnp.concatenate([J_v, J_w], axis=-1)    # (…,2,6)
 
 
@@ -112,7 +114,8 @@ def affine_warp_matrix(cam: CameraConfig, uv_ref: jnp.ndarray,
          jnp.stack([jnp.zeros_like(z_ref),
                     1.0 / fy * jnp.ones_like(z_ref),
                     jnp.zeros_like(z_ref)], -1)], -1) * zb  # (…,3,2)
-    return jnp.einsum("...ij,...jk,...kl->...il", Jp, R, Jb_cols)
+    return jnp.einsum("...ij,...jk,...kl->...il", Jp, R, Jb_cols,
+                      precision=GEOMETRY)
 
 
 def in_bounds(cam: CameraConfig, uv: jnp.ndarray, level: int = 0,

@@ -17,10 +17,15 @@ Jacobians in frontend/alignment and backend/ba).
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
+from ..precision import GEOMETRY
+
 _EPS = 1e-8
+
+
+def _mm(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    return jnp.matmul(a, b, precision=GEOMETRY)
 
 
 def identity(dtype=jnp.float32) -> jnp.ndarray:
@@ -62,7 +67,7 @@ def exp_so3(w: jnp.ndarray) -> jnp.ndarray:
     A = jnp.where(small, 1.0 - theta2 / 6.0, jnp.sin(theta) / theta)
     B = jnp.where(small, 0.5 - theta2 / 24.0, (1.0 - jnp.cos(theta)) / theta2)
     W = hat(w)
-    WW = W @ W
+    WW = _mm(W, W)
     I = jnp.broadcast_to(jnp.eye(3, dtype=w.dtype), W.shape)
     return I + A[..., None, None] * W + B[..., None, None] * WW
 
@@ -105,7 +110,7 @@ def _V(w: jnp.ndarray) -> jnp.ndarray:
     C = jnp.where(small, 1.0 / 6.0 - theta2 / 120.0,
                   (theta - jnp.sin(theta)) / (theta2 * theta))
     W = hat(w)
-    WW = W @ W
+    WW = _mm(W, W)
     I = jnp.broadcast_to(jnp.eye(3, dtype=w.dtype), W.shape)
     return I + B[..., None, None] * W + C[..., None, None] * WW
 
@@ -114,7 +119,7 @@ def exp(xi: jnp.ndarray) -> jnp.ndarray:
     """se(3) twist (…,6) = (v,w) -> SE(3) pose (…,3,4)."""
     v, w = xi[..., :3], xi[..., 3:]
     R = exp_so3(w)
-    t = (_V(w) @ v[..., None])[..., 0]
+    t = _mm(_V(w), v[..., None])[..., 0]
     return make(R, t)
 
 
@@ -124,7 +129,7 @@ def log(T: jnp.ndarray) -> jnp.ndarray:
     t = translation(T)
     w = log_so3(R)
     Vinv = jnp.linalg.inv(_V(w))
-    v = (Vinv @ t[..., None])[..., 0]
+    v = _mm(Vinv, t[..., None])[..., 0]
     return jnp.concatenate([v, w], axis=-1)
 
 
@@ -132,21 +137,21 @@ def compose(A: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
     """A ∘ B: apply B first, then A. (…,3,4) x (…,3,4) -> (…,3,4)."""
     Ra, ta = rotation(A), translation(A)
     Rb, tb = rotation(B), translation(B)
-    return make(Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta)
+    return make(_mm(Ra, Rb), _mm(Ra, tb[..., None])[..., 0] + ta)
 
 
 def inverse(T: jnp.ndarray) -> jnp.ndarray:
     R = rotation(T)
     t = translation(T)
     Rt = jnp.swapaxes(R, -1, -2)
-    return make(Rt, -(Rt @ t[..., None])[..., 0])
+    return make(Rt, -_mm(Rt, t[..., None])[..., 0])
 
 
 def transform(T: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
     """Apply pose to points: (…,3,4) x (…,3) -> (…,3)."""
     R = rotation(T)
     t = translation(T)
-    return jnp.einsum("...ij,...j->...i", R, x) + t
+    return jnp.einsum("...ij,...j->...i", R, x, precision=GEOMETRY) + t
 
 
 def retract(T: jnp.ndarray, xi: jnp.ndarray) -> jnp.ndarray:
@@ -158,7 +163,7 @@ def adjoint(T: jnp.ndarray) -> jnp.ndarray:
     """Adjoint of SE(3) for twist frame changes: (…,6,6), (v,w) layout."""
     R = rotation(T)
     t = translation(T)
-    tR = hat(t) @ R
+    tR = _mm(hat(t), R)
     top = jnp.concatenate([R, tR], axis=-1)
     bot = jnp.concatenate([jnp.zeros_like(R), R], axis=-1)
     return jnp.concatenate([top, bot], axis=-2)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from ..config import CameraConfig
+from ..precision import GEOMETRY
 from . import camera as cam_mod
 from . import se3
 
@@ -34,8 +35,10 @@ def two_view_depth(T_cr: jnp.ndarray, f_ref: jnp.ndarray, f_cur: jnp.ndarray):
     """
     R = se3.rotation(T_cr)
     t = se3.translation(T_cr)
-    Rt_f_cur = jnp.einsum("...ji,...j->...i", R, f_cur)   # R^T f_cur
-    Rt_t = jnp.einsum("...ji,...j->...i", R, t)           # R^T t
+    Rt_f_cur = jnp.einsum("...ji,...j->...i", R, f_cur,
+                          precision=GEOMETRY)          # R^T f_cur
+    Rt_t = jnp.einsum("...ji,...j->...i", R, t,
+                      precision=GEOMETRY)              # R^T t
     A00 = jnp.sum(f_ref * f_ref, axis=-1)
     A01 = -jnp.sum(f_ref * Rt_f_cur, axis=-1)
     A11 = jnp.sum(Rt_f_cur * Rt_f_cur, axis=-1)

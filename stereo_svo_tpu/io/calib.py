@@ -13,7 +13,6 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
-import yaml
 
 from ..config import CameraConfig, SvoConfig
 
@@ -21,6 +20,8 @@ from ..config import CameraConfig, SvoConfig
 def load_flat_yaml(path: str, base: Optional[SvoConfig] = None) -> SvoConfig:
     """Flat calibration file: fx, fy, cx, cy, baseline, width, height, plus
     optional algorithm knobs matching SvoConfig field names."""
+    import yaml  # PyYAML is needed only where a YAML file is read
+
     with open(path) as f:
         doc = yaml.safe_load(f) or {}
     base = base or SvoConfig()
@@ -35,6 +36,8 @@ def load_flat_yaml(path: str, base: Optional[SvoConfig] = None) -> SvoConfig:
 def load_euroc_yaml_pair(path_cam0: str, path_cam1: str
                          ) -> Tuple[dict, dict]:
     """Parse the two EuRoC sensor.yaml files into raw calib dicts."""
+    import yaml
+
     out = []
     for p in (path_cam0, path_cam1):
         with open(p) as f:

@@ -23,6 +23,7 @@ import numpy as np
 
 from ..config import CameraConfig
 from ..geometry import se3
+from ..precision import RENDER
 
 # Procedural texture: multi-octave sum of plane waves. Low octaves give the
 # smooth shading direct alignment needs; high octaves give FAST corners.
@@ -80,15 +81,15 @@ def _intersect(prim, o: jnp.ndarray, rays_w: jnp.ndarray):
     """
     if isinstance(prim, Plane):
         n, d = prim.normal, prim.d
-        denom = jnp.einsum("...i,i->...", rays_w, n)
+        denom = jnp.einsum("...i,i->...", rays_w, n, precision=RENDER)
         denom = jnp.where(jnp.abs(denom) < 1e-6, 1e-6, denom)
-        s = (d - jnp.dot(n, o)) / denom
+        s = (d - jnp.dot(n, o, precision=RENDER)) / denom
         hit = s > 0.1
     elif isinstance(prim, Sphere):
         oc = o - prim.center
-        a = jnp.einsum("...i,...i->...", rays_w, rays_w)
-        b = 2.0 * jnp.einsum("...i,i->...", rays_w, oc)
-        c0 = jnp.dot(oc, oc) - prim.radius ** 2
+        a = jnp.einsum("...i,...i->...", rays_w, rays_w, precision=RENDER)
+        b = 2.0 * jnp.einsum("...i,i->...", rays_w, oc, precision=RENDER)
+        c0 = jnp.dot(oc, oc, precision=RENDER) - prim.radius ** 2
         disc = b * b - 4.0 * a * c0
         sq = jnp.sqrt(jnp.maximum(disc, 0.0))
         s = (-b - sq) / (2.0 * a)            # near intersection
@@ -97,8 +98,8 @@ def _intersect(prim, o: jnp.ndarray, rays_w: jnp.ndarray):
     else:
         raise TypeError(type(prim))
     x = o + s[..., None] * rays_w
-    p1 = jnp.einsum("...i,i->...", x, prim.e1)
-    p2 = jnp.einsum("...i,i->...", x, prim.e2)
+    p1 = jnp.einsum("...i,i->...", x, prim.e1, precision=RENDER)
+    p2 = jnp.einsum("...i,i->...", x, prim.e2, precision=RENDER)
     return s, hit, p1, p2
 
 
@@ -305,7 +306,7 @@ def render_view(cam: CameraConfig, T_wc: jnp.ndarray, scene,
         rays_c = jnp.stack([rx, ry, jnp.ones_like(rx)], axis=-1)
         R = se3.rotation(T_wc)
         o = se3.translation(T_wc)
-        rays_w = jnp.einsum("ij,hwj->hwi", R, rays_c)
+        rays_w = jnp.einsum("ij,hwj->hwi", R, rays_c, precision=RENDER)
 
         img = jnp.zeros((H, W), jnp.float32)
         depth = jnp.full((H, W), jnp.inf, jnp.float32)
@@ -336,7 +337,7 @@ def gt_depth(cam: CameraConfig, T_wc: jnp.ndarray, uv: jnp.ndarray, scene):
     rays_c = jnp.stack([rx, ry, jnp.ones_like(rx)], axis=-1)
     R = se3.rotation(T_wc)
     o = se3.translation(T_wc)
-    rays_w = jnp.einsum("ij,...j->...i", R, rays_c)
+    rays_w = jnp.einsum("ij,...j->...i", R, rays_c, precision=RENDER)
     best = jnp.full(uv.shape[:-1], jnp.inf, jnp.float32)
     for prim in planes:
         s, hit, _, _ = _intersect(prim, o, rays_w)
@@ -435,17 +436,21 @@ def make_sequence(cam: CameraConfig, n_frames: int, dt: float = 0.1,
     photometric nuisance model per frame (`perturb_stereo`);
     ``motion_blur`` > 0 averages 3 sub-exposures spread over that fraction
     of the inter-frame motion (camera-shutter blur — smears gradients and
-    FAST scores, the classic direct-method stressor).
+    FAST scores, the classic direct-method stressor). The driving-scale
+    road scenes render 2x2-supersampled (`render_view`'s ``aa``): their
+    far texture aliases into frame-incoherent noise at one sample per
+    pixel.
     """
+    aa = 2 if scene_kind.startswith("road") else 1
     dynamic = scene_kind == "dynamic"
     if dynamic:
         def render(T, t):
-            return render_stereo(cam, T, dynamic_scene(seed, t))
+            return render_stereo(cam, T, dynamic_scene(seed, t), aa=aa)
     else:
         scene = get_scene(scene_kind, seed)
 
         def render(T, t):
-            return render_stereo(cam, T, scene)
+            return render_stereo(cam, T, scene, aa=aa)
     if motion_blur > 0.0:
         base = render
 

@@ -10,12 +10,12 @@ becomes, per level:
     (feature, patch-pixel) — fixed for all iterations;
   * per GN iteration: one batched bilinear gather of the current image at
     the warped points, Huber weights, and H = Jᵀ W J / b = Jᵀ W e reduced
-    with a single einsum (MXU) → 6x6 solve.
+    with a single einsum → 6x6 solve.
 
 Inverse-compositional formulation (SVO's own trick, here chosen because it
-moves all gradient gathers out of the iteration loop — the TPU-friendly
-schedule): minimize ||I_ref(π(exp(δ)·p)) - I_cur(π(T·p))||², update
-T ← T ∘ exp(δ)⁻¹.
+moves all gradient gathers out of the iteration loop — each iteration
+is one sampling pass and one reduction): minimize
+||I_ref(π(exp(δ)·p)) - I_cur(π(T·p))||², update T ← T ∘ exp(δ)⁻¹.
 
 Everything is fixed-capacity and masked: dead features simply carry zero
 weights (SURVEY.md §7.0.1).
@@ -30,6 +30,7 @@ import jax.numpy as jnp
 
 from ..config import CameraConfig, SvoConfig
 from ..geometry import camera, se3
+from ..precision import SOLVER
 from . import interp, solve
 
 
@@ -90,10 +91,6 @@ def make_template(levels: Sequence[jnp.ndarray],
                     mask=mask & (z > 1e-2))
 
 
-def _cdtype(cfg: SvoConfig):
-    return jnp.bfloat16 if cfg.dtype == "bfloat16" else None
-
-
 def _huber_weight(e: jnp.ndarray, k: float) -> jnp.ndarray:
     a = jnp.abs(e)
     return jnp.where(a <= k, 1.0, k / jnp.maximum(a, 1e-6))
@@ -136,8 +133,7 @@ def align(levels_cur: Sequence[jnp.ndarray], tmpl: Template,
             p_cur = se3.transform(T, tmpl.p_ref)     # (N, 3)
             uv_c, front = camera.project(cam, p_cur, level=lv)
             pts = uv_c[:, None, :] + offs[None]      # (N, P2, 2)
-            cur = interp.sample_patch(
-                img, uv_c, P, compute_dtype=_cdtype(cfg))  # (N, P2)
+            cur = interp.sample_patch(img, uv_c, P)  # (N, P2)
             ok = (camera.in_bounds(cam, pts, level=lv, margin=1.0)
                   & front[:, None] & tmpl.mask[:, None])
             return cur, ok
@@ -146,8 +142,8 @@ def align(levels_cur: Sequence[jnp.ndarray], tmpl: Template,
         # level, run cheap quasi-Newton iterations in between. The IC
         # formulation's Hessian JᵀWJ depends on the pose only through W;
         # each exact GN iteration is latency-bound on its serial
-        # 6x6-Cholesky + exp + compose chain (~15-20 µs on TPU, more than
-        # the whole sampling pass), so H is inverted once per chunk and
+        # 6x6-Cholesky + exp + compose chain (longer than the whole
+        # sampling pass), so H is inverted once per chunk and
         # inner iterations reduce to a 6x6 matvec. Short per-level
         # schedules get proportionally fewer refreshes (a 3-iteration
         # coarse level with 3 refreshes would be all solve latency).
@@ -187,10 +183,8 @@ def align(levels_cur: Sequence[jnp.ndarray], tmpl: Template,
             last_cost = jnp.sum(w * e * e) / n_ok0
             inlier_frac = (jnp.sum((jnp.abs(e) < cfg.align_huber) & ok)
                            / n_ok0)
-            H = jnp.einsum("npi,np,npj->ij", J, w, J,
-                           preferred_element_type=jnp.float32)
-            b = jnp.einsum("npi,np,np->i", J, w, e,
-                           preferred_element_type=jnp.float32)
+            H = jnp.einsum("npi,np,npj->ij", J, w, J, precision=SOLVER)
+            b = jnp.einsum("npi,np,np->i", J, w, e, precision=SOLVER)
             H = H + lam * jnp.trace(H) / 6.0 * jnp.eye(6, dtype=H.dtype) \
                 + 1e-8 * jnp.eye(6, dtype=H.dtype)
             rhs = jnp.concatenate([jnp.eye(6, dtype=H.dtype), b[None]])
@@ -204,9 +198,8 @@ def align(levels_cur: Sequence[jnp.ndarray], tmpl: Template,
                 T, cost, infrac = carry
                 cur_i, ok_i = sample_cur(T)
                 e = cur_i - (a_il * ref_patch + b_il)
-                b = jnp.einsum("npi,np,np->i", J, w, e,
-                               preferred_element_type=jnp.float32)
-                delta = Hinv @ b / a_il
+                b = jnp.einsum("npi,np,np->i", J, w, e, precision=SOLVER)
+                delta = jnp.matmul(Hinv, b, precision=SOLVER) / a_il
                 T_new = se3.compose(T, se3.exp(-delta))
                 cost = jnp.sum(w * e * e) / n_ok
                 infrac = (jnp.sum((jnp.abs(e) < cfg.align_huber) & ok_i)

@@ -9,7 +9,7 @@ active seeds").
 
 The reference's sequential per-seed loop becomes one masked update over the
 whole (N,) seed array: every op below is elementwise — XLA fuses the entire
-update (triangulation → tau → posterior) into a single VPU pass.
+update (triangulation → tau → posterior) into a single elementwise pass.
 
 Seed state (all (N,) float32, inverse-depth parameterization):
   mu      — posterior mean inverse depth (in the owner keyframe)
@@ -27,6 +27,7 @@ import jax.numpy as jnp
 from ..config import CameraConfig, SvoConfig
 from ..geometry import camera as cam_mod
 from ..geometry import se3, triangulate
+from ..precision import MATCHING
 from . import interp
 
 
@@ -255,7 +256,7 @@ def epipolar_search(cam: CameraConfig, cfg: SvoConfig,
     update budget. The reference scans pixel-by-pixel per seed; here the
     whole seed array is searched at once: the posterior μ±3σ inverse-depth
     interval projects to a segment in the current image, ``epi_samples``
-    ZNCC probes cover it in one batched patch-sampling einsum (MXU), and a
+    ZNCC probes cover it in one batched patch-sampling pass, and a
     parabola over the correlation peak gives the sub-sample position.
 
     Args:
@@ -299,7 +300,8 @@ def epipolar_search(cam: CameraConfig, cfg: SvoConfig,
         return p / jnp.maximum(
             jnp.sqrt(jnp.sum(p * p, axis=-1, keepdims=True)), 1e-6)
 
-    scores = jnp.einsum("np,nsp->ns", znorm(tmpl_patch), znorm(cur))
+    scores = jnp.einsum("np,nsp->ns", znorm(tmpl_patch), znorm(cur),
+                        precision=MATCHING)
     best = jnp.argmax(scores, axis=1)
     s_best = jnp.take_along_axis(scores, best[:, None], 1)[:, 0]
     bm = jnp.clip(best - 1, 0, S - 1)

@@ -3,7 +3,7 @@
 Reference parity: the corner detector with FAST corners plus edgelet
 features (src/lib/corner_detector.* [UNVERIFIED — SURVEY.md §0];
 SURVEY.md §2.1). The reference runs cv::FAST + a scalar edgelet scan; here
-both are *dense score maps* computed by pure VPU-friendly elementwise math
+both are *dense score maps* computed by pure elementwise math
 over 16 shifted copies of the image — no data-dependent branches, so the
 whole detector jits and vmaps.
 

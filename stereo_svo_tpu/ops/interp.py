@@ -4,7 +4,12 @@ The workhorse behind patch warping, KLT and epipolar search — the reference
 does this per-pixel with cv::getRectSubPix-style loops
 (src/lib/image_comparison.* [UNVERIFIED — SURVEY.md §0]); here it is one
 vectorized 4-tap gather over arbitrarily-shaped batches of sample points,
-fused by XLA into the surrounding kernels.
+fused by XLA into the surrounding kernels. Exact f32, no matmul.
+
+The one sampler: on an H100 it beat the tent-kernel matmul formulation
+(bilinear as one-hot einsums, built for a systolic array) at every measured
+shape — per call and across the whole scan — and was the exact one; see
+PERF.md (Findings) for the numbers.
 """
 
 from __future__ import annotations
@@ -67,15 +72,6 @@ def bilinear_with_grad(img: jnp.ndarray, uv: jnp.ndarray):
     return val, gu, gv
 
 
-def resolve_sampler(method: str) -> str:
-    """'auto' → 'mxu' on TPU (tent-kernel einsums on the systolic array),
-    'gather' elsewhere (XLA gathers are fine on CPU)."""
-    if method == "auto":
-        import jax
-        return "mxu" if jax.default_backend() == "tpu" else "gather"
-    return method
-
-
 def patch_coords(patch: int, dtype=jnp.float32) -> jnp.ndarray:
     """Centered patch offset grid: (patch*patch, 2) of (du, dv).
 
@@ -87,31 +83,16 @@ def patch_coords(patch: int, dtype=jnp.float32) -> jnp.ndarray:
     return jnp.stack([du.reshape(-1), dv.reshape(-1)], axis=-1)
 
 
-def sample_patch(img: jnp.ndarray, center_uv: jnp.ndarray, patch: int,
-                 method: str = "auto", compute_dtype=None):
-    """Sample (…,patch*patch) intensity patches centered at (…,2) points.
-
-    method: 'gather' (4-tap XLA gather), 'mxu' (tent-kernel einsums,
-    ops/interp_mxu.py), or 'auto' (backend-dependent).
-    compute_dtype: optional matmul dtype for the MXU path (bf16 = native
-    MXU rate with f32 accumulation; ignored by the gather path).
-    """
-    if resolve_sampler(method) == "mxu" and center_uv.ndim == 2:
-        from . import interp_mxu
-        return interp_mxu.sample_patch(img, center_uv, patch, compute_dtype)
+def sample_patch(img: jnp.ndarray, center_uv: jnp.ndarray, patch: int):
+    """Sample (…,patch*patch) intensity patches centered at (…,2) points."""
     offs = patch_coords(patch, img.dtype)              # (P2, 2)
     pts = center_uv[..., None, :] + offs               # (…, P2, 2)
     return bilinear(img, pts)
 
 
 def sample_rect(img: jnp.ndarray, center_uv: jnp.ndarray,
-                row_offs: jnp.ndarray, col_offs: jnp.ndarray,
-                method: str = "auto", compute_dtype=None):
+                row_offs: jnp.ndarray, col_offs: jnp.ndarray):
     """(N,2) centers + (P,)/(Q,) offsets → (N,P,Q) bilinear samples."""
-    if resolve_sampler(method) == "mxu":
-        from . import interp_mxu
-        return interp_mxu.sample_rect(img, center_uv, row_offs, col_offs,
-                                      compute_dtype)
     su = center_uv[:, None, None, 0] + col_offs[None, None, :]
     sv = center_uv[:, None, None, 1] + row_offs[None, :, None]
     N = center_uv.shape[0]

@@ -28,6 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from ..config import CameraConfig, SvoConfig
+from ..precision import GEOMETRY, SOLVER
 from . import interp, solve
 
 
@@ -62,8 +63,7 @@ def make_template(levels: Sequence[jnp.ndarray],
         gu = interp.sample_patch(gxs[lv], uv * scale, P)
         gv = interp.sample_patch(gys[lv], uv * scale, P)
         J = jnp.stack([gu, gv], axis=-1)                    # (N, P2, 2)
-        H = jnp.einsum("npi,npj->nij", J, J,
-                       preferred_element_type=jnp.float32)
+        H = jnp.einsum("npi,npj->nij", J, J, precision=SOLVER)
         # Regularize: textureless templates get ~identity (their updates
         # will be tiny since Jᵀe ≈ 0) instead of a singular solve.
         H = H + 1e-3 * jnp.eye(2, dtype=H.dtype)
@@ -104,15 +104,16 @@ def warp_template_level(big: jnp.ndarray, A_inv: jnp.ndarray, patch: int
     B = int(round(B2 ** 0.5))
     imgs = big.reshape(N, B, B)
     offs = interp.patch_coords(patch, big.dtype)          # (P2, 2) cur px
-    r_ref = jnp.einsum("nij,pj->npi", A_inv, offs)        # (N, P2, 2) ref px
+    r_ref = jnp.einsum("nij,pj->npi", A_inv, offs,
+                       precision=GEOMETRY)             # (N, P2, 2) ref px
     contained = jnp.all(jnp.abs(r_ref) <= (B - 1) / 2.0, axis=(-2, -1))
     # big-patch index coords: grid spans offsets [-(B-1)/2, (B-1)/2]
     pts = r_ref + (B - 1) / 2.0
     val, gu, gv = jax.vmap(interp.bilinear_with_grad)(imgs, pts)
     g_ref = jnp.stack([gu, gv], axis=-1)                  # (N, P2, 2)
-    J = jnp.einsum("npj,nji->npi", g_ref, A_inv)          # cur-frame coords
-    H = jnp.einsum("npi,npj->nij", J, J,
-                   preferred_element_type=jnp.float32)
+    J = jnp.einsum("npj,nji->npi", g_ref, A_inv,
+                   precision=GEOMETRY)                    # cur-frame coords
+    H = jnp.einsum("npi,npj->nij", J, J, precision=SOLVER)
     H = H + 1e-3 * jnp.eye(2, dtype=H.dtype)
     return val, J, solve.inv2x2(H), contained
 
@@ -169,10 +170,7 @@ def track(levels_cur: Sequence[jnp.ndarray], tmpl: KltTemplate,
 
         def body(it, carry):
             uv, conv, res = carry
-            cur = interp.sample_patch(
-                img, uv * scale, P,
-                compute_dtype=jnp.bfloat16 if cfg.dtype == "bfloat16"
-                else None)
+            cur = interp.sample_patch(img, uv * scale, P)
             if cfg.illum_affine:
                 # Per-feature affine fit cur ≈ a·t + b (closed form over
                 # the patch): absorbs exposure change AND the spatially-
@@ -201,9 +199,9 @@ def track(levels_cur: Sequence[jnp.ndarray], tmpl: KltTemplate,
             else:
                 a_il = jnp.ones((uv.shape[0], 1), jnp.float32)
                 e = cur - t                                  # (N, P2)
-            g = jnp.einsum("npi,np->ni", J, e,
-                           preferred_element_type=jnp.float32)
-            delta = jnp.einsum("nij,nj->ni", Hinv, g) / a_il  # level-lv px
+            g = jnp.einsum("npi,np->ni", J, e, precision=SOLVER)
+            delta = jnp.einsum("nij,nj->ni", Hinv, g,
+                               precision=SOLVER) / a_il      # level-lv px
             if edge_dir is not None and is_edgelet is not None:
                 # 1-DoF constraint: project the update onto the gradient
                 # normal for edgelet features

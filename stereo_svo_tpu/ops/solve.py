@@ -1,16 +1,19 @@
 """Small linear-algebra kernels, LAPACK-free, batched, XLA-fusable.
 
-TPU rationale: `jnp.linalg.solve/inv` lower to LAPACK-style sequential
-factorizations that do not vectorize; the SVO hot loops only ever need
-2x2/3x3 closed forms, a 6x6 SPD solve, and a small-SPD CG — all of which
-fuse into the surrounding GN graphs as plain arithmetic. Used by
-alignment, KLT, pose refinement and the BA Schur solver.
+`jnp.linalg.solve/inv` on a batch of tiny matrices lower to library
+factorization calls (cuSOLVER on the GPU) with their own launch and
+workspace; the SVO hot loops only ever need 2x2/3x3 closed forms, a 6x6
+SPD solve, and a small-SPD CG — all of which fuse into the surrounding GN
+graphs as plain elementwise arithmetic. Used by alignment, KLT, pose
+refinement and the BA Schur solver.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+from ..precision import SOLVER
 
 
 def inv2x2(A: jnp.ndarray, eps: float = 1e-12) -> jnp.ndarray:
@@ -95,20 +98,18 @@ def cg_solve(A: jnp.ndarray, b: jnp.ndarray, iters: int = 25,
              x0: jnp.ndarray | None = None) -> jnp.ndarray:
     """Fixed-iteration conjugate gradient for SPD A (…,n,n), b (…,n).
 
-    Jacobi-preconditioned; fixed ``iters`` keeps control flow static (the
-    TPU-friendly schedule). This is the reduced-camera-system solver in
-    the distributed BA — matvecs are batched matmuls, and under shard_map
-    the A blocks are already psum-reduced so no per-iteration collectives
+    Jacobi-preconditioned; fixed ``iters`` keeps control flow static.
+    This is the reduced-camera-system fallback of window BA — matvecs
+    are batched matmuls, and under shard_map the A blocks are already psum-reduced so no per-iteration collectives
     are needed.
     """
     diag = jnp.diagonal(A, axis1=-2, axis2=-1)
     Minv = 1.0 / jnp.maximum(jnp.abs(diag), 1e-12)
 
     def mv(v):
-        # true-f32 matvec: default TPU precision (bf16 inputs) is too
-        # coarse for CG on normal equations (see backend/ba.py note)
-        return jnp.einsum("...ij,...j->...i", A, v,
-                          precision=jax.lax.Precision.HIGHEST)
+        # true-f32 matvec: TF32 inputs are too coarse for CG on normal
+        # equations (see backend/ba.py note)
+        return jnp.einsum("...ij,...j->...i", A, v, precision=SOLVER)
 
     x = jnp.zeros_like(b) if x0 is None else x0
     r = b - mv(x)

@@ -6,15 +6,15 @@ epipolar line within ``search_x`` (src/lib/depth_calculator.*
 keypoint per disparity; here the whole frame's matching is one batched
 computation: per feature we bilinearly sample a single (P, D+P-1) strip of
 the right image (all D candidate windows share fractional offsets, so one
-strip covers every disparity), build the D sliding windows with static
-slices, and score all of them with ZNCC in one einsum — MXU/VPU friendly,
-no per-feature control flow.
+strip covers every disparity), extract the D sliding windows from it, and
+score all of them with ZNCC in one einsum — no per-feature control flow.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
 
+from ..precision import MATCHING
 from . import interp
 
 
@@ -45,18 +45,17 @@ def _search_1d(ref_n: jnp.ndarray, img: jnp.ndarray, uv0: jnp.ndarray,
     row_off = jnp.arange(P, dtype=img.dtype) - half
     strip = interp.sample_rect(img, uv0, row_off, col_off)   # (N,P,C)
     N = uv0.shape[0]
-    # All D sliding windows in ONE one-hot selector einsum (MXU) —
-    # wins[n,d,p,q] = strip[n,p,start_d+q]. The previous formulation
-    # stacked D static slices, i.e. O(D) HLO ops per search direction:
-    # at D=128 and two directions (LR check) the unrolled graph pushed
-    # full-pipeline compiles past the sandbox's practical budget.
+    # All D sliding windows in ONE index gather —
+    # wins[n,d,p,q] = strip[n,p,start_d+q]. One HLO op whatever D is
+    # (stacking D static slices unrolled O(D) ops per search direction
+    # and blew up compile time at D=128 with the LR check), and exact:
+    # it moves intensities instead of multiplying them by one-hot
+    # selectors, which at TF32 shifted disparities by up to 0.014 px.
     cols = starts[:, None] + jnp.arange(P)[None, :]          # (D,P)
-    onehot = (jnp.arange(C)[None, None, :] == cols[..., None]
-              ).astype(strip.dtype)                          # (D,P,C)
-    wins = jnp.einsum("npc,dqc->ndpq", strip, onehot,
-                      preferred_element_type=jnp.float32)    # (N,D,P,P)
+    wins = jnp.moveaxis(strip[:, :, cols], 2, 1)             # (N,D,P,P)
     wins_n = _normalize(wins.reshape(N, D, P * P))
-    scores = jnp.einsum("np,ndp->nd", ref_n, wins_n)          # (N,D)
+    scores = jnp.einsum("np,ndp->nd", ref_n, wins_n,
+                        precision=MATCHING)                  # (N,D)
 
     best = jnp.argmax(scores, axis=1)
     best_score = jnp.take_along_axis(scores, best[:, None], axis=1)[:, 0]
@@ -92,7 +91,7 @@ def match(left: jnp.ndarray, right: jnp.ndarray, uv: jnp.ndarray,
         outlier killer: occlusions and repeated texture rarely round-trip
         (measured on the deep road scene: ZNCC-passing outliers with
         +11 px mean disparity error seeded the KITTI-geometry forward-
-        scale runaway, BASELINE.md r3).
+        scale runaway, 9778a94:BASELINE.md r3).
       prominence: reject flat correlation ridges (low-frequency texture
         along the scanline localizes arbitrarily): require
         best − (s₋+s₊)/2 above this.
@@ -134,7 +133,7 @@ def refine_disparity(left: jnp.ndarray, right: jnp.ndarray,
     need: without per-frame stereo reobservation the depth filter's
     motion-triangulation observations follow pose-scale drift and outvote
     the accurate stereo seed (KITTI-geometry road run: landmark depth bias
-    +0.8% → +9.6% over 100 frames, BASELINE.md r3 root-cause).
+    +0.8% → +9.6% over 100 frames, 9778a94:BASELINE.md r3 root-cause).
 
     Returns (disp, zncc, ok) like ``match``; ok includes an interior check
     (peak strictly inside the window — a edge hit means the prediction was

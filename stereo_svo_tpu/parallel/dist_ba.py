@@ -5,7 +5,8 @@ across hosts/devices on the ``kf`` mesh axis. Each shard linearizes its own
 landmarks' observation blocks and eliminates its landmark 3x3 blocks
 locally (the landmark Hessian is block-diagonal, so elimination is
 embarrassingly parallel); the reduced camera system's pose blocks are
-summed across shards with ``psum`` over ICI and solved replicated (6K x 6K,
+summed across shards with ``psum`` (NVLink all-reduce between the GPUs of
+one host) and solved replicated (6K x 6K,
 tiny); landmark back-substitution is again shard-local. One ``psum`` per GN
 iteration is the entire communication volume: O(K²·36) floats, independent
 of the number of landmarks.

@@ -5,14 +5,15 @@ one global problem — poses from all sequences concatenated, landmarks
 concatenated, observation blocks block-diagonal — then refines it with:
 
   1. the distributed Schur-complement stereo BA (landmarks sharded over the
-     ``kf`` mesh axis, pose system psum-reduced over ICI — dist_ba.py), and
+     ``kf`` mesh axis, pose system psum-reduced across the devices —
+     over NVLink between the GPUs of one host — dist_ba.py), and
   2. pose-graph optimization over all keyframe chains, with optional
      cross-sequence loop-closure edges (backend/pose_graph.py).
 
 The reference has no distributed anything (SURVEY.md §2.2) — this module is
-the TPU-native design the task contract requires: "KITTI 00+02+05 map
-sharded across 2+ hosts with distributed Schur-complement BA and
-pose-graph optimization".
+the design for a multi-sequence deployment: a KITTI 00+02+05-style map
+sharded across devices with distributed Schur-complement BA and
+pose-graph optimization.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Device-mesh helpers for the (data, kf) parallelism axes.
 
 SURVEY.md §2.2 / §5.8: the communication backend is the JAX runtime only —
-`jax.make_mesh` + `shard_map` + XLA collectives over ICI/DCN. No NCCL/MPI
-layer exists in the reference (single process) or here.
+`jax.make_mesh` + `shard_map` + XLA collectives, which XLA lowers to NCCL
+over NVLink between the GPUs of one host. No MPI layer exists in the
+reference (single process) or here.
 
 Axes:
   "data" — independent sequences (DP; north-star config #4)

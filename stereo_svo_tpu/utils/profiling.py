@@ -2,7 +2,8 @@
 
 The reference prints wall-clock fps at most; here profiling is first-class:
 ``trace()`` wraps ``jax.profiler`` (view in TensorBoard/Perfetto) and
-``time_fn`` is the micro-benchmark harness used for per-kernel numbers.
+``time_runs`` is the one timing harness of the benchmarks and the smoke
+test.
 """
 
 from __future__ import annotations
@@ -15,8 +16,8 @@ import jax
 
 
 @contextlib.contextmanager
-def trace(logdir: str = "/tmp/svo_trace"):
-    """Profile a block: `with trace(): run()` → TensorBoard/Perfetto."""
+def trace(logdir: str):
+    """Profile a block: `with trace(dir): run()` → TensorBoard/Perfetto."""
     jax.profiler.start_trace(logdir)
     try:
         yield logdir
@@ -24,16 +25,18 @@ def trace(logdir: str = "/tmp/svo_trace"):
         jax.profiler.stop_trace()
 
 
-def time_fn(fn: Callable, *args, iters: int = 20, warmup: int = 2) -> float:
-    """Median wall time (s) of a jitted function, properly synchronized."""
-    for _ in range(warmup):
-        out = fn(*args)
-    jax.block_until_ready(out)
+def time_runs(fn: Callable, *args, runs: int = 20):
+    """(first-call s, [run s], last outputs) of ``fn(*args)``.
+
+    The first call compiles a jitted ``fn`` (or loads it from the compile
+    cache) and is timed apart; each of the ``runs`` timed calls ends in
+    ``block_until_ready``. Report the median of the run times."""
+    t0 = time.perf_counter()
+    out = jax.block_until_ready(fn(*args))
+    first_s = time.perf_counter() - t0
     times = []
-    for _ in range(iters):
+    for _ in range(runs):
         t0 = time.perf_counter()
-        out = fn(*args)
-        jax.block_until_ready(out)
+        out = jax.block_until_ready(fn(*args))
         times.append(time.perf_counter() - t0)
-    times.sort()
-    return times[len(times) // 2]
+    return first_s, times, out

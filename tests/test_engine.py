@@ -13,7 +13,7 @@ from stereo_svo_tpu.io import synthetic
 
 pytestmark = pytest.mark.slow  # compile-heavy e2e tier
 
-# Small image for CPU CI speed; bench uses full 752x480 on TPU.
+# Small image for CPU CI speed; bench uses full 752x480 on the GPU.
 CFG = SvoConfig(
     camera=CameraConfig(fx=240.0, fy=240.0, cx=188.0, cy=120.0,
                         baseline=0.11, width=376, height=240),

@@ -326,7 +326,7 @@ def test_roundtrip_gate_rejects_false_proposal():
     round-trip error explodes, and the edge must be REJECTED regardless
     of the per-direction inlier fractions — phantom edges of exactly this
     kind compounded 0.3-0.5 m of error on a drift-free run before the
-    gate existed (BASELINE.md r5). Also asserts the healthy fixture's
+    gate existed (9778a94:BASELINE.md r5). Also asserts the healthy fixture's
     round trip is SMALL — the gate discriminates, not just rejects."""
     drift = [0.03, -0.02, 0.04, 0.01, -0.012, 0.008]
     (kf_T_wk, thumbs, descs, obs_uv, obs_mask, obs_disp,

@@ -220,7 +220,7 @@ def test_refine_disparity_narrow_search():
 def test_stereo_observe_pulls_drifted_posterior_back():
     """The per-frame stereo observation must pull an inverse-depth
     posterior that drifted +10% back toward the (pose-free) stereo depth —
-    the scale-anchor property (BASELINE.md r3 root-cause)."""
+    the scale-anchor property (9778a94:BASELINE.md r3 root-cause)."""
     from stereo_svo_tpu.ops import depth_filter
 
     cfg = SvoConfig()

@@ -54,7 +54,7 @@ def test_vmapped_multisequence_matches_single():
 
 def test_graft_entry_compiles():
     fn, args = graft.entry()
-    # abstract compile only — full 752x480 execution is the TPU bench's job
+    # abstract compile only — full 752x480 execution is chip_smoke.py's job
     lowered = jax.jit(fn).lower(*args)
     compiled_text = lowered.as_text()
     assert "func" in compiled_text  # produced StableHLO

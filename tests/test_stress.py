@@ -1,6 +1,6 @@
 """Scaled-capacity smoke test toward north-star config #3 (5-level
 pyramid, large seed population) at CI scale; the full 2048-seed 752x480
-variant runs in the TPU bench (bench.py BENCH_STRESS=1)."""
+variant runs on the GPU (bench.py BENCH_STRESS=1, chip_smoke.py)."""
 
 import numpy as np
 
